@@ -1,9 +1,9 @@
 """Weak-scaling harness: sharded CG over a device mesh (BASELINE.md target:
 >=80% weak-scaling efficiency on SpMV nnz/s up to the 48M-element problem).
 
-On a real multi-chip slice this reports per-chip SpMV and CG throughput at
-fixed work per chip.  Without one (this box exposes a single chip), run it
-on the virtual CPU mesh to validate the harness and the sharded pipeline:
+One process drives every device of the mesh.  On several GPUs of one host
+it reports per-device SpMV and CG throughput at fixed work per device; on
+the virtual CPU mesh it validates the harness and the sharded pipeline:
 
   XLA_FLAGS=--xla_force_host_platform_device_count=8 \
   JAX_PFEM_CPU=1 python bench_scaling.py --per-shard-n 16 --shards 1 2 4 8
@@ -34,9 +34,9 @@ def main():
         jax.config.update("jax_platforms", "cpu")
     import jax.numpy as jnp
 
-    from pfemfort_tpu.drivers.sharded import solve_implicit_sharded
-    from pfemfort_tpu.elements.poisson import poisson_element_matrices
-    from pfemfort_tpu.mesh import generate
+    from pfemfort_jax.drivers.sharded import solve_implicit_sharded
+    from pfemfort_jax.elements.poisson import poisson_element_matrices
+    from pfemfort_jax.mesh import generate
 
     devs = jax.devices()
     shard_counts = args.shards or sorted(

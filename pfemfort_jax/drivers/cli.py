@@ -1,0 +1,413 @@
+"""Command-line drivers mirroring the reference executable matrix.
+
+Every reference solver is a standalone PROGRAM run as
+  mpirun -np N <exe> <nodefile> <elemfile> <DirichletBCfile> [<ForceBCfile>]
+(/root/reference/bin/makefile:3-11).  Here one CLI exposes the same problem
+matrix as subcommands with the same positional-file convention (devices
+replace ranks; sharding is an option, not a launcher):
+
+  python -m pfemfort_jax poisson     <nodes> <elems> <dbc> [-o out.vtk] ...
+  python -m pfemfort_jax elasticity  <nodes> <elems> <dbc> [fbc] ...
+  python -m pfemfort_jax explicit    <nodes> <elems> <dbc> [fbc] --preset tria ...
+  python -m pfemfort_jax genmesh     tet x0 x1 nex y0 y1 ney z0 z1 nez -o prefix
+  python -m pfemfort_jax partition   <nodes> <elems> --nparts N -o part.vtk
+  python -m pfemfort_jax vtktovtu    in.vtk out.vtu
+
+Equivalences: poisson<->{tria,tetra}poisson{serial,parallel}impl1/2/3;
+elasticity<->{tria,tetra}elasticityparallelimpl1; explicit presets<->the five
+explicit drivers; genmesh<->genTetra/genTetranovtk; partition<->
+meshpartitioncpp/meshpartitionfort*; vtktovtu<->vtktovtu.cpp.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import sys
+import time
+
+import numpy as np
+
+
+def _read(args, with_force=False):
+    from pfemfort_jax.mesh import io as mesh_io
+
+    mesh = mesh_io.read_mesh(args.nodes, args.elems)
+    dbc = mesh_io.read_bcs(args.dbc)
+    fbc = mesh_io.read_bcs(args.fbc) if getattr(args, "fbc", None) else None
+    return mesh, dbc, fbc
+
+
+def _report(mesh, ndof, res, t0):
+    # Same user-visible milestones as the reference drivers: mesh stats,
+    # iteration count, wall-clock (triapoissonparallelimpl1.F:373-384,914-921).
+    print(f" Mesh statistics: nElem {mesh.n_elem}  nNode {mesh.n_node}  "
+          f"npElem {mesh.npe}  ndof {ndof}")
+    iters = int(np.asarray(res.stats.iters))
+    if bool(np.asarray(res.stats.converged)):
+        print(f" Convergence in {iters} iterations, "
+              f"relres {float(np.asarray(res.stats.relres)):.3e}")
+    else:
+        print(f" Fails to converge within {iters} iterations "
+              f"(relres {float(np.asarray(res.stats.relres)):.3e})")
+    print(f" That took {time.perf_counter() - t0:.3f} seconds")
+
+
+def _write_output(args, mesh, ndof, u_full, elem_procid=None):
+    if args.output:
+        from pfemfort_jax.io.vtk import write_vtk
+
+        write_vtk(args.output, mesh, u_full, ndof, elem_procid=elem_procid)
+        print(f" Wrote {args.output}")
+
+
+def _solver_opts(args):
+    """PETSc-options-file parity: -ksp_type/-pc_type/-ksp_rtol etc.
+    (solverpetsc.F:198,209 let the reference switch solvers this way)."""
+    if getattr(args, "options_file", None):
+        from pfemfort_jax.config import SolverOptions
+        o = SolverOptions.from_options_file(args.options_file)
+        args.rtol = o.rtol
+        if o.ksp_type in ("cg", "bicgstab", "gmres"):
+            args.ksp = o.ksp_type
+        if hasattr(args, "precond") and o.pc_type != "jacobi":
+            # -pc_type ilu/icc -> ic0, -pc_type hypre/gamg -> mg (config.py
+            # aliases); block_jacobi -> the sharded bjacobi route
+            args.precond = {"block_jacobi": "bjacobi"}.get(o.pc_type,
+                                                           o.pc_type)
+    return args
+
+
+def cmd_poisson(args):
+    from pfemfort_jax.drivers.poisson import solve_poisson
+
+    _solver_opts(args)
+    mesh, dbc, _ = _read(args)
+    t0 = time.perf_counter()
+    if args.shards and args.shards > 1:
+        from pfemfort_jax.drivers.sharded import solve_implicit_sharded
+        from pfemfort_jax.elements.poisson import poisson_element_matrices
+
+        src = args.source
+        if src is None:
+            src = -6.0 if mesh.etype == "tetra4" else 0.0
+        res = solve_implicit_sharded(
+            mesh, 1, dbc,
+            lambda c: poisson_element_matrices(c, mesh.etype, source=src),
+            n_shards=args.shards, rtol=args.rtol, precond=args.precond,
+            method=args.ksp)
+    else:
+        res = solve_poisson(mesh, dbc, rtol=args.rtol, method=args.ksp,
+                            source=args.source, bc_mode=args.bc_mode,
+                            precond=args.precond, refine=args.refine,
+                            matrix_free=args.matrix_free)
+    _report(mesh, 1, res, t0)
+    _write_output(args, mesh, 1, res.u_full,
+                  elem_procid=getattr(res, "elem_part", None))
+    return 0 if res.stats.converged else 1
+
+
+def cmd_elasticity(args):
+    from pfemfort_jax.drivers.elasticity import solve_elasticity
+
+    _solver_opts(args)
+    mesh, dbc, fbc = _read(args, with_force=True)
+    t0 = time.perf_counter()
+    if args.shards and args.shards > 1:
+        from pfemfort_jax.drivers.sharded import solve_implicit_sharded
+        from pfemfort_jax.elements.elasticity import (
+            dmat_3d, dmat_plane_strain, dmat_plane_stress,
+            elasticity_stiffness)
+
+        if mesh.ndim == 2:
+            D = dmat_plane_stress(args.E, args.nu) \
+                if args.plane == "stress" else \
+                dmat_plane_strain(args.E, args.nu)
+        else:
+            D = dmat_3d(args.E, args.nu)
+        res = solve_implicit_sharded(
+            mesh, mesh.ndim, dbc,
+            lambda c: elasticity_stiffness(c, mesh.etype, D),
+            n_shards=args.shards, force_bc=fbc, rtol=args.rtol,
+            precond=args.precond, method=args.ksp)
+    else:
+        res = solve_elasticity(
+            mesh, dbc, args.E, args.nu, force_bc=fbc,
+            bforce=None, plane=args.plane, rtol=args.rtol,
+            method=args.ksp, refine=args.refine)
+    _report(mesh, mesh.ndim, res, t0)
+    _write_output(args, mesh, mesh.ndim, res.u_full,
+                  elem_procid=getattr(res, "elem_part", None))
+    return 0 if res.stats.converged else 1
+
+
+def cmd_explicit(args):
+    import jax.numpy as jnp
+
+    from pfemfort_jax.drivers import presets as P
+    from pfemfort_jax.dynamics.explicit import explicit_dynamics
+
+    preset = {
+        "tria": P.TRIA_EXPLICIT,
+        "quad": P.QUAD_EXPLICIT,
+        "prism": P.PRISM_EXPLICIT,
+        "tria6": P.TRIA6_EXPLICIT,
+    }[args.preset]
+    mesh, dbc, fbc = _read(args, with_force=True)
+    assert mesh.etype == preset.etype, (
+        f"mesh is {mesh.etype}, preset wants {preset.etype}")
+
+    nsteps = args.nsteps or preset.nsteps
+    dt = args.dt or preset.dt
+    ndim = mesh.ndim
+
+    def bforce_fn(t):
+        b = jnp.asarray(preset.bforce)
+        if preset.pulse_t is not None:
+            b = b * jnp.where(t <= preset.pulse_t, 1.0, 0.0)
+        return b
+
+    snapshot_cb = None
+    if args.vtk_every and args.output:
+        from pfemfort_jax.io.vtk import write_vtk
+        stem = args.output[:-4] if args.output.endswith(".vtk") \
+            else args.output
+
+        def snapshot_cb(step, disp_full):
+            path = f"{stem}-{step:05d}.vtk"
+            write_vtk(path, mesh, disp_full, ndim)
+            print(f" Wrote {path}")
+
+    t0 = time.perf_counter()
+    res = explicit_dynamics(
+        mesh, dbc, preset.E, preset.nu, preset.dens, dt, nsteps,
+        bforce_fn=bforce_fn, force_bc=fbc,
+        probe_dofs=args.probe or preset.probe_dofs,
+        thickness=preset.thickness, use_hourglass=preset.use_hourglass,
+        snapshot_every=args.vtk_every, snapshot_cb=snapshot_cb)
+    print(f" {nsteps} steps in {time.perf_counter() - t0:.3f} seconds")
+    if (args.probe or preset.probe_dofs):
+        # reference writes timeNow disp... velo... (triaelasticityexplicit.F:1098)
+        with open(args.probe_out, "w") as f:
+            for t, row in zip(res.times, res.probe_history):
+                f.write(" ".join(map(str, [t] + list(row))) + "\n")
+        print(f" Wrote {args.probe_out}")
+    if args.output:
+        from pfemfort_jax.io.vtk import write_vtk
+
+        write_vtk(args.output, mesh, res.disp, ndim)
+        print(f" Wrote {args.output}")
+    return 0
+
+
+def cmd_cfd(args):
+    """Lid-driven-cavity style incompressible NS (the working version of the
+    reference's abandoned cfdexplicittria6node)."""
+    from pfemfort_jax.cfd.navierstokes import fractional_step_ns
+
+    mesh, vbc, _ = _read(args, with_force=False)
+    t0 = time.perf_counter()
+    res = fractional_step_ns(mesh, vbc, nu_visc=args.nu_visc, dt=args.dt,
+                             nsteps=args.nsteps)
+    print(f" {args.nsteps} steps in {time.perf_counter() - t0:.3f} seconds; "
+          f"final max|div u| = {float(res.div_history[-1]):.3e}")
+    if args.output:
+        from pfemfort_jax.io.vtk import write_vtk
+        if mesh.ndim == 2:
+            # 2D: pack (u, v, p) as a 3-vector (ParaView-friendly)
+            sol = np.concatenate(
+                [res.velocity, res.pressure[:, None]], axis=1).reshape(-1)
+            write_vtk(args.output, mesh, sol, 3)
+            print(f" Wrote {args.output} (vector = u,v,p)")
+        else:
+            write_vtk(args.output, mesh, res.velocity.reshape(-1),
+                      mesh.ndim)
+            print(f" Wrote {args.output} (vector = u,v,w)")
+    return 0
+
+
+def cmd_genmesh(args):
+    from pfemfort_jax.mesh import generate
+    from pfemfort_jax.mesh import io as mesh_io
+
+    if args.shape == "tet":
+        mesh, dbc = generate.box_tet(
+            args.x0, args.x1, args.nex, args.y0, args.y1, args.ney,
+            args.z0, args.z1, args.nez)
+        mesh_io.write_dat(args.out, mesh, dirichlet=dbc)
+    elif args.shape == "tria":
+        mesh = generate.rect_tria(args.x0, args.x1, args.nex,
+                                  args.y0, args.y1, args.ney)
+        mesh_io.write_dat(args.out, mesh)
+    else:
+        raise SystemExit(f"unknown shape {args.shape}")
+    print(f" Wrote {args.out}-nodes.dat / -elems.dat"
+          + (" / -DirichBC.dat" if args.shape == "tet" else ""))
+    return 0
+
+
+def cmd_partition(args):
+    from pfemfort_jax.mesh import io as mesh_io
+    from pfemfort_jax.parallel.partition import partition_elements
+
+    mesh = mesh_io.read_mesh(args.nodes, args.elems)
+    part = partition_elements(mesh, args.nparts, method=args.method)
+    counts = np.bincount(part, minlength=args.nparts)
+    print(f" Partitioned {mesh.n_elem} elements into {args.nparts} parts; "
+          f"sizes {counts.tolist()}")
+    if args.output:
+        from pfemfort_jax.io.vtk import write_vtk
+
+        write_vtk(args.output, mesh, np.zeros(mesh.n_node), 1,
+                  elem_procid=part)
+        print(f" Wrote {args.output}")
+    return 0
+
+
+def cmd_vtktovtu(args):
+    from pfemfort_jax.io.vtk import vtk_to_vtu
+
+    vtk_to_vtu(args.input, args.out)
+    print(f" Wrote {args.out}")
+    return 0
+
+
+def cmd_bench(args):
+    import bench  # repo-root bench harness
+
+    sys.argv = ["bench.py", str(args.n)]
+    bench.main()
+    return 0
+
+
+def build_parser():
+    p = argparse.ArgumentParser(
+        prog="pfemfort_jax",
+        description="FEM solvers in JAX (PFEMFort capability set)")
+    sub = p.add_subparsers(dest="cmd", required=True)
+
+    def add_files(sp, force=False):
+        sp.add_argument("nodes")
+        sp.add_argument("elems")
+        sp.add_argument("dbc")
+        if force:
+            sp.add_argument("fbc", nargs="?", default=None)
+        sp.add_argument("-o", "--output", default=None,
+                        help="legacy VTK output path")
+        sp.add_argument("--options-file", default=None,
+                        help="PETSc-style options file (-ksp_type, "
+                             "-pc_type, -ksp_rtol, ...)")
+
+    sp = sub.add_parser("poisson", help="implicit Poisson (2D/3D)")
+    add_files(sp)
+    sp.add_argument("--rtol", type=float, default=1e-8)
+    sp.add_argument("--ksp", choices=["cg", "bicgstab", "gmres"],
+                    default="cg")
+    sp.add_argument("--source", type=float, default=None,
+                    help="volume source (default: 0 in 2D, -6 for tetra)")
+    sp.add_argument("--shards", type=int, default=0,
+                    help="shard the solve over N devices (0 = single)")
+    sp.add_argument("--bc-mode", choices=["reduced", "full"],
+                    default="reduced",
+                    help="reduced = BC-eliminated system (impl1/2); "
+                         "full = MatZeroRows identity rows (impl3)")
+    sp.add_argument("--precond",
+                    choices=["jacobi", "cheby", "ic0", "amg", "mg"],
+                    default="jacobi",
+                    help="cheby = Chebyshev polynomial (ILU-class for "
+                         "unstructured meshes); mg = geometric multigrid "
+                         "(structured meshes, bc-mode=full)")
+    sp.add_argument("--refine", action="store_true",
+                    help="double-float refinement to TRUE f64 rtol")
+    sp.add_argument("--matrix-free", action="store_true",
+                    help="assembly-free operator (recomputes element "
+                         "contributions per SpMV)")
+    sp.set_defaults(fn=cmd_poisson)
+
+    sp = sub.add_parser("elasticity", help="implicit linear elasticity")
+    add_files(sp, force=True)
+    sp.add_argument("--E", type=float, default=240.565)
+    sp.add_argument("--nu", type=float, default=0.3)
+    sp.add_argument("--plane", choices=["stress", "strain"],
+                    default="stress")
+    sp.add_argument("--rtol", type=float, default=1e-8)
+    sp.add_argument("--ksp", choices=["cg", "bicgstab", "gmres"],
+                    default="cg")
+    sp.add_argument("--shards", type=int, default=0,
+                    help="shard the solve over N devices (0 = single)")
+    sp.add_argument("--precond",
+                    choices=["jacobi", "bjacobi", "ic0", "amg", "mg"],
+                    default="bjacobi",
+                    help="sharded-solve preconditioner (bjacobi = per-node "
+                         "blocks, the reference default, solverpetsc.F:206; "
+                         "mg = distributed geometric multigrid on "
+                         "generator lattices)")
+    sp.add_argument("--refine", action="store_true",
+                    help="double-float refinement to TRUE f64 rtol")
+    sp.set_defaults(fn=cmd_elasticity)
+
+    sp = sub.add_parser("explicit", help="explicit central-difference dynamics")
+    add_files(sp, force=True)
+    sp.add_argument("--preset", choices=["tria", "quad", "prism", "tria6"],
+                    required=True)
+    sp.add_argument("--nsteps", type=int, default=None)
+    sp.add_argument("--dt", type=float, default=None)
+    sp.add_argument("--probe", type=int, nargs="*", default=None,
+                    help="0-based global node-dof indices to record")
+    sp.add_argument("--probe-out", default="solnoutput.dat")
+    sp.add_argument("--vtk-every", type=int, default=0,
+                    help="write <output-stem>-NNNNN.vtk every k steps (the "
+                         "reference's Elasticity-soln-NNNNN.vtk series)")
+    sp.set_defaults(fn=cmd_explicit)
+
+    sp = sub.add_parser("cfd", help="incompressible NS fractional step")
+    add_files(sp)
+    sp.add_argument("--nu-visc", type=float, default=0.05)
+    sp.add_argument("--dt", type=float, default=2e-3)
+    sp.add_argument("--nsteps", type=int, default=500)
+    sp.set_defaults(fn=cmd_cfd)
+
+    sp = sub.add_parser("genmesh", help="generate structured meshes")
+    sp.add_argument("shape", choices=["tet", "tria"])
+    sp.add_argument("x0", type=float)
+    sp.add_argument("x1", type=float)
+    sp.add_argument("nex", type=int)
+    sp.add_argument("y0", type=float)
+    sp.add_argument("y1", type=float)
+    sp.add_argument("ney", type=int)
+    sp.add_argument("z0", type=float, nargs="?")
+    sp.add_argument("z1", type=float, nargs="?")
+    sp.add_argument("nez", type=int, nargs="?")
+    sp.add_argument("-o", "--out", required=True, help="output prefix")
+    sp.set_defaults(fn=cmd_genmesh)
+
+    sp = sub.add_parser("partition", help="partition a mesh (RCB/greedy)")
+    sp.add_argument("nodes")
+    sp.add_argument("elems")
+    sp.add_argument("--nparts", type=int, required=True)
+    sp.add_argument("--method", choices=["rcb", "greedy"], default="rcb")
+    sp.add_argument("-o", "--output", default=None,
+                    help="VTK with per-cell procid (partition viz)")
+    sp.set_defaults(fn=cmd_partition)
+
+    sp = sub.add_parser("vtktovtu", help="legacy VTK -> XML .vtu")
+    sp.add_argument("input")
+    sp.add_argument("out")
+    sp.set_defaults(fn=cmd_vtktovtu)
+
+    sp = sub.add_parser("bench", help="run the benchmark harness")
+    sp.add_argument("n", type=int, nargs="?", default=72)
+    sp.set_defaults(fn=cmd_bench)
+    return p
+
+
+def main(argv=None):
+    from pfemfort_jax.utils.compile_cache import enable_compile_cache
+
+    args = build_parser().parse_args(argv)
+    enable_compile_cache()
+    return args.fn(args)
+
+
+if __name__ == "__main__":
+    sys.exit(main())

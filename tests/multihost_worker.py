@@ -16,7 +16,7 @@ coord = sys.argv[3]
 prefix = sys.argv[4]
 # "dia" (lattice mesh, slab shards) or "ell" (scrambled mesh: the
 # unstructured per-shard ELL assembly + all_to_all stash + pairwise ghost
-# exchange crossing a REAL process boundary — VERDICT r3 missing #3)
+# exchange crossing a REAL process boundary)
 mode = sys.argv[5] if len(sys.argv) > 5 else "dia"
 
 os.environ["JAX_PLATFORMS"] = "cpu"
@@ -31,14 +31,14 @@ jax.config.update("jax_enable_x64", True)
 
 import numpy as np  # noqa: E402
 
-from pfemfort_tpu.parallel import multihost  # noqa: E402
+from pfemfort_jax.parallel import multihost  # noqa: E402
 
 multihost.initialize(coordinator_address=coord, num_processes=nproc,
                      process_id=pid)
 assert jax.process_count() == nproc, jax.process_count()
 assert jax.device_count() == 4 * nproc, jax.device_count()
 
-from pfemfort_tpu.drivers.partitioned import (  # noqa: E402
+from pfemfort_jax.drivers.partitioned import (  # noqa: E402
     solve_poisson_partitioned,
 )
 

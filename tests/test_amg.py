@@ -6,14 +6,14 @@ import jax
 import numpy as np
 import pytest
 
-from pfemfort_tpu.drivers.common import solve_implicit
-from pfemfort_tpu.elements.poisson import poisson_element_matrices
+from pfemfort_jax.drivers.common import solve_implicit
+from pfemfort_jax.elements.poisson import poisson_element_matrices
 
 POISSON = lambda c: poisson_element_matrices(c, "tetra4", source=-6.0)
 
 
 def _scrambled(n, seed=0):
-    from pfemfort_tpu.mesh import generate
+    from pfemfort_jax.mesh import generate
 
     mesh, dbc = generate.box_tet(0, 1, n, 0, 1, n, 0, 1, n)
     perm = np.random.default_rng(seed).permutation(mesh.n_node)
@@ -44,7 +44,7 @@ def test_amg_on_delaunay_mesh():
     converge in far fewer iterations than Jacobi with the same solution."""
     from scipy.spatial import Delaunay
 
-    from pfemfort_tpu.mesh.core import Mesh
+    from pfemfort_jax.mesh.core import Mesh
 
     rng = np.random.default_rng(2)
     n = 12       # > coarsest_max rows so the hierarchy actually builds
@@ -74,8 +74,8 @@ def test_amg_on_delaunay_mesh():
 
 
 def test_native_aggregation_matches_python():
-    from pfemfort_tpu import native
-    from pfemfort_tpu.solve import amg as amg_mod
+    from pfemfort_jax import native
+    from pfemfort_jax.solve import amg as amg_mod
 
     if not native.available():
         pytest.skip("native library not built")
@@ -102,7 +102,7 @@ def test_native_aggregation_matches_python():
 
 
 def test_options_file_gamg_maps_to_amg():
-    from pfemfort_tpu.config import SolverOptions
+    from pfemfort_jax.config import SolverOptions
 
     o = SolverOptions.from_options("-ksp_type cg\n-pc_type gamg\n")
     assert o.pc_type == "amg"
@@ -121,7 +121,7 @@ def test_distributed_amg_mesh_independent():
     """precond='amg' on the unstructured DISTRIBUTED path: sharded fine
     smoothing over the halo operator + replicated algebraic coarse tail —
     mesh-independent iterations across 4 shards where Jacobi grows O(n)."""
-    from pfemfort_tpu.drivers.sharded import solve_implicit_sharded
+    from pfemfort_jax.drivers.sharded import solve_implicit_sharded
 
     dm = _mesh_or_skip(4)
     its = {}
@@ -143,9 +143,9 @@ def test_distributed_amg_mesh_independent():
 def test_distributed_amg_elasticity():
     """ndof=3 through the distributed AMG (dof-granular aggregation): must
     converge markedly faster than Jacobi with the same solution."""
-    from pfemfort_tpu.drivers.sharded import solve_implicit_sharded
-    from pfemfort_tpu.elements.elasticity import dmat_3d, elasticity_stiffness
-    from pfemfort_tpu.mesh import generate
+    from pfemfort_jax.drivers.sharded import solve_implicit_sharded
+    from pfemfort_jax.elements.elasticity import dmat_3d, elasticity_stiffness
+    from pfemfort_jax.mesh import generate
 
     dm = _mesh_or_skip(4)
     mesh, _ = generate.box_tet(0, 1, 6, 0, 1, 6, 0, 1, 10)
@@ -178,7 +178,7 @@ def test_distributed_amg_shard_count_invariant():
     residual — solve/amg.py:dist_samg_preconditioner) is the SAME operator
     at any shard count: 1-vs-8-shard solves must agree in solution and in
     iteration count up to roundoff reassociation."""
-    from pfemfort_tpu.drivers.sharded import solve_implicit_sharded
+    from pfemfort_jax.drivers.sharded import solve_implicit_sharded
 
     devs = jax.devices()
     if len(devs) < 8:

@@ -7,21 +7,21 @@ import pytest
 
 from tests.conftest import dense_assemble
 
-from pfemfort_tpu.assembly.assemble import (
+from pfemfort_jax.assembly.assemble import (
     assemble_ell_values,
     assemble_rhs,
     dirichlet_rhs_correction,
 )
-from pfemfort_tpu.assembly.pattern import build_pattern
-from pfemfort_tpu.dofs.dofmap import build_dofmap
-from pfemfort_tpu.drivers.elasticity import solve_elasticity
-from pfemfort_tpu.drivers.poisson import solve_poisson
-from pfemfort_tpu.elements.elasticity import dmat_plane_stress, elasticity_stiffness
-from pfemfort_tpu.elements.poisson import poisson_element_matrices
-from pfemfort_tpu.mesh import generate
-from pfemfort_tpu.solve.cg import cg_solve, bicgstab_solve, jacobi_preconditioner
-from pfemfort_tpu.sparse.spmv import extract_diagonal, spmv_ell
-from pfemfort_tpu.elements.geometry import to_element_minor
+from pfemfort_jax.assembly.pattern import build_pattern
+from pfemfort_jax.dofs.dofmap import build_dofmap
+from pfemfort_jax.drivers.elasticity import solve_elasticity
+from pfemfort_jax.drivers.poisson import solve_poisson
+from pfemfort_jax.elements.elasticity import dmat_plane_stress, elasticity_stiffness
+from pfemfort_jax.elements.poisson import poisson_element_matrices
+from pfemfort_jax.mesh import generate
+from pfemfort_jax.solve.cg import cg_solve, bicgstab_solve, jacobi_preconditioner
+from pfemfort_jax.sparse.spmv import extract_diagonal, spmv_ell
+from pfemfort_jax.elements.geometry import to_element_minor
 
 
 def _em(mesh):
@@ -232,14 +232,14 @@ def test_delaunay_truly_unstructured_poisson():
 
     import jax.numpy as jnp
 
-    from pfemfort_tpu.assembly.assemble import (
+    from pfemfort_jax.assembly.assemble import (
         assemble_matrix, assemble_rhs, dirichlet_rhs_correction)
-    from pfemfort_tpu.assembly.pattern import build_pattern
-    from pfemfort_tpu.dofs.dofmap import build_dofmap
-    from pfemfort_tpu.drivers.poisson import solve_poisson
-    from pfemfort_tpu.elements.geometry import to_element_minor
-    from pfemfort_tpu.elements.poisson import poisson_element_matrices
-    from pfemfort_tpu.mesh.core import Mesh
+    from pfemfort_jax.assembly.pattern import build_pattern
+    from pfemfort_jax.dofs.dofmap import build_dofmap
+    from pfemfort_jax.drivers.poisson import solve_poisson
+    from pfemfort_jax.elements.geometry import to_element_minor
+    from pfemfort_jax.elements.poisson import poisson_element_matrices
+    from pfemfort_jax.mesh.core import Mesh
 
     rng = np.random.default_rng(0)
     n = 6

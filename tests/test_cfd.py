@@ -3,8 +3,8 @@
 import numpy as np
 import pytest
 
-from pfemfort_tpu.cfd.navierstokes import fractional_step_ns
-from pfemfort_tpu.mesh import generate
+from pfemfort_jax.cfd.navierstokes import fractional_step_ns
+from pfemfort_jax.mesh import generate
 
 
 def _cavity_bcs(mesh, lid_u=1.0):
@@ -115,7 +115,7 @@ def test_taylor_green_3d_decay_rate():
 def test_projection_divergence_decays_with_rate():
     """Starting from a NON-solenoidal field, the projection must reduce the
     divergence by a measurable factor within a few steps (a rate, not just
-    a decrease — VERDICT r2 weak #9)."""
+    a decrease)."""
     npts = 8
     mesh, _ = generate.box_tet(0, 1, npts, 0, 1, npts, 0, 1, npts)
     x, y, z = mesh.coords.T

@@ -5,7 +5,7 @@ import os
 import numpy as np
 import pytest
 
-from pfemfort_tpu.drivers.cli import main
+from pfemfort_jax.drivers.cli import main
 
 
 @pytest.fixture()
@@ -31,7 +31,7 @@ def test_cli_tria_poisson(tmp_path, capsys):
                "-o", str(tmp_path / "sq")])
     assert rc == 0
     # tria genmesh writes no DirichBC -> make one (all-boundary zeros)
-    from pfemfort_tpu.mesh import generate, io as mesh_io
+    from pfemfort_jax.mesh import generate, io as mesh_io
     mesh = mesh_io.read_mesh(str(tmp_path / "sq-nodes.dat"),
                              str(tmp_path / "sq-elems.dat"))
     b = generate.boundary_nodes(mesh)
@@ -55,7 +55,7 @@ def test_cli_elasticity_reference_mesh(capsys):
 
 
 def test_cli_explicit_preset(tmp_path, capsys):
-    from pfemfort_tpu.mesh import generate, io as mesh_io
+    from pfemfort_jax.mesh import generate, io as mesh_io
     mesh = generate.rect_tria(0, 1, 3, 0, 1, 2)
     left = np.nonzero(np.isclose(mesh.coords[:, 0], 0))[0]
     dbc = np.array([[n, d, 0.0] for n in left for d in (0, 1)])
@@ -83,7 +83,7 @@ def test_cli_partition_and_vtktovtu(tet_prefix, tmp_path, capsys):
 
 
 def test_cli_cfd_cavity(tmp_path, capsys):
-    from pfemfort_tpu.mesh import generate, io as mesh_io
+    from pfemfort_jax.mesh import generate, io as mesh_io
     from tests.test_cfd import _cavity_bcs
     mesh = generate.rect_tria(0, 1, 6, 0, 1, 6)
     bcs = _cavity_bcs(mesh)
@@ -99,7 +99,7 @@ def test_cli_cfd_cavity(tmp_path, capsys):
 
 
 def test_cli_explicit_vtk_series(tmp_path, capsys):
-    from pfemfort_tpu.mesh import generate, io as mesh_io
+    from pfemfort_jax.mesh import generate, io as mesh_io
     import numpy as np
     mesh = generate.rect_tria(0, 1, 3, 0, 1, 2)
     left = np.nonzero(np.isclose(mesh.coords[:, 0], 0))[0]
@@ -137,7 +137,7 @@ def test_cli_elasticity_sharded(tmp_path, capsys):
                "0", "1", "16", "-o", str(tmp_path / "bar")])
     assert rc == 0
     # clamp the base, pull the tip
-    from pfemfort_tpu.mesh import io as mesh_io
+    from pfemfort_jax.mesh import io as mesh_io
     mesh = mesh_io.read_mesh(str(tmp_path / "bar-nodes.dat"),
                              str(tmp_path / "bar-elems.dat"))
     base = np.nonzero(np.isclose(mesh.coords[:, 2], 0))[0]
@@ -162,9 +162,9 @@ def test_options_file_pc_type_ilu_routes_ic0(tmp_path):
     triapoissonserialimpl1.F:696 + solverpetsc.F options-file parity)."""
     import numpy as np
 
-    from pfemfort_tpu.drivers.cli import main as cli_main
-    from pfemfort_tpu.mesh import generate
-    from pfemfort_tpu.mesh.io import write_dat
+    from pfemfort_jax.drivers.cli import main as cli_main
+    from pfemfort_jax.mesh import generate
+    from pfemfort_jax.mesh.io import write_dat
 
     mesh, dbc = generate.box_tet(0, 1, 4, 0, 1, 4, 0, 1, 4)
     perm = np.random.default_rng(0).permutation(mesh.n_node)

@@ -5,25 +5,25 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from pfemfort_tpu.assembly.assemble import (
+from pfemfort_jax.assembly.assemble import (
     assemble_matrix,
     assemble_rhs,
 )
-from pfemfort_tpu.assembly.pattern import build_pattern
-from pfemfort_tpu.dofs.dofmap import build_dofmap
-from pfemfort_tpu.drivers.poisson import solve_poisson
-from pfemfort_tpu.elements.poisson import poisson_element_matrices
-from pfemfort_tpu.elements.elasticity import dmat_3d, elasticity_stiffness
-from pfemfort_tpu.mesh import generate
-from pfemfort_tpu.sparse.dia import DIAMatrix, dia_diagonal, spmv_dia
-from pfemfort_tpu.sparse.formats import ELLMatrix
-from pfemfort_tpu.sparse.spmv import extract_diagonal, spmv_ell
+from pfemfort_jax.assembly.pattern import build_pattern
+from pfemfort_jax.dofs.dofmap import build_dofmap
+from pfemfort_jax.drivers.poisson import solve_poisson
+from pfemfort_jax.elements.poisson import poisson_element_matrices
+from pfemfort_jax.elements.elasticity import dmat_3d, elasticity_stiffness
+from pfemfort_jax.mesh import generate
+from pfemfort_jax.sparse.dia import DIAMatrix, dia_diagonal, spmv_dia
+from pfemfort_jax.sparse.formats import ELLMatrix
+from pfemfort_jax.sparse.spmv import extract_diagonal, spmv_ell
 
 
 def _system(mesh, ndof, dbc, element_fn, layout="auto"):
     dofmap = build_dofmap(mesh, ndof, dbc)
     pattern = build_pattern(dofmap.elem_dof, dofmap.total_dof, layout=layout)
-    from pfemfort_tpu.elements.geometry import to_element_minor
+    from pfemfort_jax.elements.geometry import to_element_minor
     Ke, _ = element_fn(jnp.asarray(to_element_minor(mesh.elem_coords())))
     A = assemble_matrix(Ke, pattern)
     return dofmap, pattern, A
@@ -49,7 +49,7 @@ def test_box_tet_pattern_is_dia_and_matches_ell():
 def test_rhs_assembly_same_both_layouts():
     mesh, dbc = generate.box_tet(0, 1, 4, 0, 1, 4, 0, 1, 4)
     dofmap = build_dofmap(mesh, 1, dbc)
-    from pfemfort_tpu.elements.geometry import to_element_minor
+    from pfemfort_jax.elements.geometry import to_element_minor
     Ke, Fe = poisson_element_matrices(
         jnp.asarray(to_element_minor(mesh.elem_coords())), "tetra4",
         source=-6.0)
@@ -115,13 +115,13 @@ def test_lattice_stencil_spmv_matches_flat():
     """DIAMatrix.lattice fast path (N-D stencil slices) is bit-identical to
     the generic 1-D shifted-FMA path on assembled FEM matrices."""
     import jax.numpy as jnp
-    from pfemfort_tpu.assembly.assemble import assemble_matrix
-    from pfemfort_tpu.assembly.pattern import build_pattern
-    from pfemfort_tpu.dofs.dofmap import build_dofmap, reduced_lattice
-    from pfemfort_tpu.elements.geometry import to_element_minor
-    from pfemfort_tpu.elements.poisson import poisson_element_matrices
-    from pfemfort_tpu.mesh import generate
-    from pfemfort_tpu.sparse.dia import spmv_dia
+    from pfemfort_jax.assembly.assemble import assemble_matrix
+    from pfemfort_jax.assembly.pattern import build_pattern
+    from pfemfort_jax.dofs.dofmap import build_dofmap, reduced_lattice
+    from pfemfort_jax.elements.geometry import to_element_minor
+    from pfemfort_jax.elements.poisson import poisson_element_matrices
+    from pfemfort_jax.mesh import generate
+    from pfemfort_jax.sparse.dia import spmv_dia
 
     rng = np.random.default_rng(3)
     mesh, dbc = generate.box_tet(0, 1, 7, 0, 1, 9, 0, 1, 8)
@@ -140,7 +140,7 @@ def test_lattice_stencil_spmv_matches_flat():
 
 
 def test_decompose_offsets():
-    from pfemfort_tpu.sparse.dia import decompose_offsets
+    from pfemfort_jax.sparse.dia import decompose_offsets
 
     # canonical 3D 7-point stencil on (9, 9, 9)
     offs = (-81, -9, -1, 0, 1, 9, 81)

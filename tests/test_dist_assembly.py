@@ -12,21 +12,21 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from pfemfort_tpu.assembly.assemble import (
+from pfemfort_jax.assembly.assemble import (
     assemble_matrix,
     assemble_rhs,
     dirichlet_rhs_correction,
 )
-from pfemfort_tpu.drivers.poisson import solve_poisson
-from pfemfort_tpu.drivers.sharded import (
+from pfemfort_jax.drivers.poisson import solve_poisson
+from pfemfort_jax.drivers.sharded import (
     assemble_implicit_sharded,
     solve_implicit_sharded,
 )
-from pfemfort_tpu.elements.elasticity import dmat_3d, elasticity_stiffness
-from pfemfort_tpu.elements.geometry import to_element_minor
-from pfemfort_tpu.elements.poisson import poisson_element_matrices
-from pfemfort_tpu.mesh import generate
-from pfemfort_tpu.parallel.dist_assembly import build_dist_setup
+from pfemfort_jax.elements.elasticity import dmat_3d, elasticity_stiffness
+from pfemfort_jax.elements.geometry import to_element_minor
+from pfemfort_jax.elements.poisson import poisson_element_matrices
+from pfemfort_jax.mesh import generate
+from pfemfort_jax.parallel.dist_assembly import build_dist_setup
 
 
 def _mesh_or_skip(n):
@@ -100,7 +100,7 @@ def test_dist_solve_elasticity_block_jacobi():
     fbc = np.array([[tip, 0, 1.0]])
     efn = lambda c: elasticity_stiffness(c, "tetra4", D)
 
-    from pfemfort_tpu.drivers.elasticity import solve_elasticity
+    from pfemfort_jax.drivers.elasticity import solve_elasticity
     ref = solve_elasticity(mesh, dbc, 240.565, 0.3, force_bc=fbc,
                            rtol=1e-11)
 
@@ -118,8 +118,7 @@ def test_dist_solve_elasticity_block_jacobi():
 
 def test_unstructured_routes_to_dist_ell():
     """Non-lattice meshes must use the per-shard ELL + all_to_all path
-    (parallel/dist_ell.py), NOT the replicated fallback (VERDICT r2
-    Missing #1)."""
+    (parallel/dist_ell.py), NOT the replicated fallback."""
     dm = _mesh_or_skip(2)
     mesh, dbc = generate.box_tet(0, 1, 5, 0, 1, 5, 0, 1, 6)
     perm = np.random.default_rng(3).permutation(mesh.n_node)

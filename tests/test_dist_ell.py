@@ -12,21 +12,21 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from pfemfort_tpu.assembly.assemble import (
+from pfemfort_jax.assembly.assemble import (
     assemble_matrix,
     assemble_rhs,
     dirichlet_rhs_correction,
 )
-from pfemfort_tpu.drivers.poisson import solve_poisson
-from pfemfort_tpu.drivers.sharded import (
+from pfemfort_jax.drivers.poisson import solve_poisson
+from pfemfort_jax.drivers.sharded import (
     assemble_implicit_sharded_ell,
     solve_implicit_sharded,
 )
-from pfemfort_tpu.elements.elasticity import dmat_3d, elasticity_stiffness
-from pfemfort_tpu.elements.geometry import to_element_minor
-from pfemfort_tpu.elements.poisson import poisson_element_matrices
-from pfemfort_tpu.mesh import generate
-from pfemfort_tpu.parallel.dist_ell import build_dist_ell_setup
+from pfemfort_jax.elements.elasticity import dmat_3d, elasticity_stiffness
+from pfemfort_jax.elements.geometry import to_element_minor
+from pfemfort_jax.elements.poisson import poisson_element_matrices
+from pfemfort_jax.mesh import generate
+from pfemfort_jax.parallel.dist_ell import build_dist_ell_setup
 
 POISSON = lambda c: poisson_element_matrices(c, "tetra4", source=-6.0)
 
@@ -85,9 +85,9 @@ def test_ell_halo_spmv_matches_gather():
     """The pairwise ghost-exchange SpMV (spmv_ell_halo) == the plain global
     gather SpMV, and its exchange window is O(surface)."""
     from jax.sharding import PartitionSpec as P
-    from pfemfort_tpu.parallel.dist_ell import build_ell_halo, spmv_ell_halo
-    from pfemfort_tpu.sparse.spmv import spmv_ell
-    from pfemfort_tpu.sparse.formats import ELLMatrix
+    from pfemfort_jax.parallel.dist_ell import build_ell_halo, spmv_ell_halo
+    from pfemfort_jax.sparse.spmv import spmv_ell
+    from pfemfort_jax.sparse.formats import ELLMatrix
 
     dm = _mesh_or_skip(4)
     mesh, dbc = _scrambled_box(6, 6, 10, seed=2)
@@ -149,7 +149,7 @@ def test_beam_elasticity_with_force_bc(beam3d, scramble):
     E_, nu_ = 240.565, 0.3
     efn = lambda c: elasticity_stiffness(c, "tetra4", dmat_3d(E_, nu_))
 
-    from pfemfort_tpu.drivers.elasticity import solve_elasticity
+    from pfemfort_jax.drivers.elasticity import solve_elasticity
     ref = solve_elasticity(mesh, dbc, E_, nu_, force_bc=fbc, rtol=1e-11)
 
     # recover=False pins the general ELL route (recovery would renumber
@@ -162,52 +162,6 @@ def test_beam_elasticity_with_force_bc(beam3d, scramble):
     assert bool(np.asarray(res.stats.converged))
     scale = np.abs(ref.u_full).max()
     assert np.abs(res.u_full - ref.u_full).max() < 1e-8 * max(scale, 1.0)
-
-
-def test_slotgather_plans_match_halo_semantics():
-    """The stacked per-shard slot-gather plans (the TPU in-shard SpMV fast
-    path) reproduce spmv_ell_halo's gather over the ghost-extended local
-    vector, shard by shard (validated via the reference executor)."""
-    from pfemfort_tpu.parallel.dist_ell import (
-        build_ell_halo, build_ell_halo_slotgather)
-    from pfemfort_tpu.sparse.slotgather import (
-        SlotGatherPlan, apply_slotgather_reference)
-
-    S = 4
-    mesh, dbc = generate.box_tet(0, 1, 4, 0, 1, 4, 0, 1, 8)
-    setup = build_dist_ell_setup(mesh, 1, dbc, S)
-    cols_local, send_rows, wx = build_ell_halo(setup)
-    Prow = setup.sys.rows_per_shard
-    sg = build_ell_halo_slotgather(cols_local, wx, Prow)
-    assert sg is not None, "lexicographic slab shards must stay within cap"
-    T, V, G, P_, nce = sg["dims"]
-    assert P_ == Prow and nce == Prow + S * wx + 1
-
-    rng = np.random.default_rng(0)
-    K = setup.ell_k
-    vals = rng.standard_normal((S, Prow, K)).astype(np.float32)
-    x = rng.standard_normal((S, Prow)).astype(np.float32)
-
-    for s in range(S):
-        xg = np.zeros(nce, np.float32)
-        xg[:Prow] = x[s]
-        for o in range(S):
-            xg[Prow + o * wx: Prow + (o + 1) * wx] = x[o][send_rows[o, s]]
-        xg[-1] = 0.0
-        cl = cols_local[s].astype(np.int64)
-        y_ref = (vals[s] * xg[cl]).sum(axis=1)
-
-        plan = SlotGatherPlan(
-            n_rows=Prow, T=T, V=V, G=G,
-            qsel=sg["qsel"][s], vstart=sg["vstart"][s], rsel=sg["rsel"][s],
-            eps=sg["eps"][s], src=sg["src"][s].astype(np.int64),
-            n_cols=nce)
-        valsv = np.where(plan.src >= 0,
-                         vals[s].reshape(-1)[np.clip(plan.src, 0, None)],
-                         0.0).astype(np.float32)
-        y = apply_slotgather_reference(plan, valsv, xg)
-        err = np.abs(y - y_ref).max() / max(np.abs(y_ref).max(), 1e-30)
-        assert err < 1e-5, (s, err)
 
 
 def test_bjacobi_beats_jacobi_on_scrambled_elasticity(beam3d):
@@ -245,7 +199,7 @@ def test_bjacobi_beats_jacobi_on_scrambled_elasticity(beam3d):
 
 def test_mg_refusal_is_recorded():
     """precond='mg' on a non-coarsenable mesh must record the refusal reason
-    and the preconditioner actually used (VERDICT r3 weak #4)."""
+    and the preconditioner actually used."""
     dm = _mesh_or_skip(4)
     mesh, dbc = generate.box_tet(0, 1, 4, 0, 1, 4, 0, 1, 7)  # odd nez
     res = solve_implicit_sharded(mesh, 1, dbc, POISSON, device_mesh=dm,
@@ -282,7 +236,7 @@ def test_delaunay_mesh_distributed_ell():
     preconditioner — matches the single-device solve."""
     from scipy.spatial import Delaunay
 
-    from pfemfort_tpu.mesh.core import Mesh
+    from pfemfort_jax.mesh.core import Mesh
 
     dm = _mesh_or_skip(4)
     rng = np.random.default_rng(1)
@@ -320,62 +274,3 @@ def test_delaunay_mesh_distributed_ell():
     assert bool(np.asarray(res.stats.converged))
     scale = max(np.abs(ref.u_full).max(), 1.0)
     assert np.abs(res.u_full - ref.u_full).max() < 1e-8 * scale
-
-
-def test_hybrid_plans_match_halo_semantics():
-    """The per-shard HYBRID split (dist_ell.build_ell_halo_hybrid: dense
-    local diagonals -> DIA part on own x, remainder+ghosts -> slot-gather
-    over the extended vector) reproduces spmv_ell_halo's gather shard by
-    shard via the numpy reference executors."""
-    from pfemfort_tpu.parallel.dist_ell import (
-        build_ell_halo, build_ell_halo_hybrid)
-    from pfemfort_tpu.sparse.slotgather import (
-        SlotGatherPlan, apply_slotgather_reference)
-
-    S = 4
-    mesh, dbc = generate.box_tet(0, 1, 5, 0, 1, 5, 0, 1, 8)
-    perm = np.random.default_rng(11).permutation(mesh.n_node)
-    mesh = mesh.renumbered(perm.astype(np.int64))
-    dbc = dbc.copy()
-    dbc[:, 0] = perm[dbc[:, 0].astype(np.int64)]
-    setup = build_dist_ell_setup(mesh, 1, dbc, S)
-    cols_local, send_rows, wx = build_ell_halo(setup)
-    Prow = setup.sys.rows_per_shard
-    hy = build_ell_halo_hybrid(cols_local, wx, Prow)
-    assert hy is not None
-    D = len(hy["offsets"])
-    assert D >= 1          # lex-ordered shards: dense local diagonals
-    T, V, G, P_, nce = hy["dims"]
-
-    rng = np.random.default_rng(0)
-    K = setup.ell_k
-    vals = rng.standard_normal((S, Prow, K)).astype(np.float64)
-    x = rng.standard_normal((S, Prow)).astype(np.float64)
-
-    for s in range(S):
-        xg = np.zeros(nce, np.float64)
-        xg[:Prow] = x[s]
-        for o in range(S):
-            xg[Prow + o * wx: Prow + (o + 1) * wx] = x[o][send_rows[o, s]]
-        cl = cols_local[s].astype(np.int64)
-        y_ref = (vals[s] * xg[np.clip(cl, 0, nce - 1)]
-                 * (cl < nce - 1)).sum(axis=1)
-
-        # DIA part on own x
-        y = np.zeros(Prow)
-        for d, o in enumerate(hy["offsets"]):
-            src = hy["dia_src"][s, d].astype(np.int64)
-            rr = np.nonzero(src >= 0)[0]
-            y[rr] += vals[s].reshape(-1)[src[rr]] * x[s][rr + o]
-        # slot-gather remainder on the extended vector
-        plan = SlotGatherPlan(
-            n_rows=Prow, T=T, V=V, G=G,
-            qsel=hy["qsel"][s], vstart=hy["vstart"][s], rsel=hy["rsel"][s],
-            eps=hy["eps"][s], src=hy["src"][s].astype(np.int64),
-            n_cols=nce)
-        valsv = np.where(plan.src >= 0,
-                         vals[s].reshape(-1)[np.clip(plan.src, 0, None)],
-                         0.0)
-        y = y + apply_slotgather_reference(plan, valsv, xg)
-        err = np.abs(y - y_ref).max() / max(np.abs(y_ref).max(), 1e-30)
-        assert err < 1e-12, (s, err)

@@ -7,10 +7,10 @@ import jax
 import numpy as np
 import pytest
 
-from pfemfort_tpu.drivers.sharded import solve_implicit_sharded
-from pfemfort_tpu.elements.poisson import poisson_element_matrices
-from pfemfort_tpu.mesh import generate
-from pfemfort_tpu.parallel.dist_mg import solve_sharded_mg
+from pfemfort_jax.drivers.sharded import solve_implicit_sharded
+from pfemfort_jax.elements.poisson import poisson_element_matrices
+from pfemfort_jax.mesh import generate
+from pfemfort_jax.parallel.dist_mg import solve_sharded_mg
 
 POISSON = lambda c: poisson_element_matrices(c, "tetra4", source=-6.0)
 
@@ -66,7 +66,7 @@ def test_dist_mg_elasticity_linear_field():
     the ndof-aware smoothing (nu=2, omega=0.6) keeps iterations low."""
     import jax.numpy as jnp
 
-    from pfemfort_tpu.elements.elasticity import dmat_3d, elasticity_stiffness
+    from pfemfort_jax.elements.elasticity import dmat_3d, elasticity_stiffness
 
     dm = _mesh_or_skip(4)
     mesh, _ = generate.box_tet(0, 1, 4, 0, 1, 4, 0, 1, 8)
@@ -89,8 +89,8 @@ def test_dist_mg_elasticity_linear_field():
 
 
 def test_driver_routes_precond_mg():
-    """solve_implicit_sharded(precond='mg') must reach the distributed MG
-    (VERDICT r2: dist_mg.py had zero call sites)."""
+    """solve_implicit_sharded(precond='mg') must reach the distributed
+    MG."""
     dm = _mesh_or_skip(4)
     mesh, dbc = generate.box_tet(0, 1, 8, 0, 1, 8, 0, 1, 8)
     res = solve_implicit_sharded(mesh, 1, dbc, POISSON, device_mesh=dm,

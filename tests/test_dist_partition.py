@@ -7,8 +7,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from pfemfort_tpu.mesh import generate
-from pfemfort_tpu.parallel.dist_partition import rcb_partition_device
+from pfemfort_jax.mesh import generate
+from pfemfort_jax.parallel.dist_partition import rcb_partition_device
 
 
 @pytest.mark.parametrize("k", [2, 4, 7, 8])

@@ -4,8 +4,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from pfemfort_tpu.elements.basis import DEFAULT_NGP, tabulate_basis
-from pfemfort_tpu.elements.elasticity import (
+from pfemfort_jax.elements.basis import DEFAULT_NGP, tabulate_basis
+from pfemfort_jax.elements.elasticity import (
     dmat_3d,
     dmat_plane_strain,
     dmat_plane_stress,
@@ -13,7 +13,7 @@ from pfemfort_tpu.elements.elasticity import (
     elasticity_stiffness,
     lumped_mass,
 )
-from pfemfort_tpu.elements.geometry import grads_and_det, to_element_minor
+from pfemfort_jax.elements.geometry import grads_and_det, to_element_minor
 
 
 def _em(coords):
@@ -27,8 +27,8 @@ def _K_np(K):
 
 def _F_np(F):
     return np.asarray(F).T
-from pfemfort_tpu.elements.poisson import poisson_element_matrices
-from pfemfort_tpu.elements.quadrature import gauss_rule
+from pfemfort_jax.elements.poisson import poisson_element_matrices
+from pfemfort_jax.elements.quadrature import gauss_rule
 
 ALL_ETYPES = ["tria3", "tria6", "quad4", "tetra4", "prism6", "hexa8"]
 

@@ -4,14 +4,14 @@ reference implementation of the Fortran time loop)."""
 import jax.numpy as jnp
 import numpy as np
 
-from pfemfort_tpu.dofs.dofmap import build_dofmap
-from pfemfort_tpu.dynamics.explicit import explicit_dynamics
-from pfemfort_tpu.elements.elasticity import (
+from pfemfort_jax.dofs.dofmap import build_dofmap
+from pfemfort_jax.dynamics.explicit import explicit_dynamics
+from pfemfort_jax.elements.elasticity import (
     dmat_plane_strain,
     elasticity_residual,
     lumped_mass,
 )
-from pfemfort_tpu.mesh import generate
+from pfemfort_jax.mesh import generate
 
 
 def _numpy_reference_loop(mesh, dbc, E, nu, dens, dt, nsteps, pulse_t):
@@ -21,7 +21,7 @@ def _numpy_reference_loop(mesh, dbc, E, nu, dens, dt, nsteps, pulse_t):
     ndof = 2
     dofmap = build_dofmap(mesh, ndof, dbc)
     n_full = mesh.n_node * ndof
-    from pfemfort_tpu.elements.geometry import to_element_minor
+    from pfemfort_jax.elements.geometry import to_element_minor
     coords_em = jnp.asarray(to_element_minor(mesh.elem_coords()))
 
     Me = np.asarray(lumped_mass(coords_em, mesh.etype, dens, ndof)).T

@@ -12,9 +12,9 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from pfemfort_tpu.dofs.dofmap import build_dofmap
-from pfemfort_tpu.dynamics.explicit import _MASS_NGP, explicit_dynamics
-from pfemfort_tpu.elements.elasticity import (
+from pfemfort_jax.dofs.dofmap import build_dofmap
+from pfemfort_jax.dynamics.explicit import _MASS_NGP, explicit_dynamics
+from pfemfort_jax.elements.elasticity import (
     dmat_3d,
     dmat_plane_strain,
     dmat_plane_stress,
@@ -22,8 +22,8 @@ from pfemfort_tpu.elements.elasticity import (
     lumped_mass,
     quad_hg_residual,
 )
-from pfemfort_tpu.elements.geometry import to_element_minor
-from pfemfort_tpu.mesh import generate
+from pfemfort_jax.elements.geometry import to_element_minor
+from pfemfort_jax.mesh import generate
 
 # --------------------------------------------------------------------------
 # independent basis + quadrature (plain python, per-point)

@@ -3,8 +3,8 @@
 import numpy as np
 import pytest
 
-from pfemfort_tpu.drivers.poisson import solve_poisson
-from pfemfort_tpu.mesh import generate
+from pfemfort_jax.drivers.poisson import solve_poisson
+from pfemfort_jax.mesh import generate
 
 
 def _dbc_square(mesh, fn):

@@ -6,24 +6,24 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from pfemfort_tpu.assembly.stencil64 import (
+from pfemfort_jax.assembly.stencil64 import (
     lattice_bc_f64,
     stencil_full_system_f64,
     symmetrized_f32,
     zero_rows_f64,
 )
-from pfemfort_tpu.mesh import generate
-from pfemfort_tpu.solve.highprec import solve_box_poisson_1e8
+from pfemfort_jax.mesh import generate
+from pfemfort_jax.solve.highprec import solve_box_poisson_1e8
 
 
 def test_stencil_f64_matches_elementwise_assembly():
     """Constant-stencil f64 values == device structured assembly from the
     per-element kernels (f64), up to congruent-cell rounding noise."""
-    from pfemfort_tpu.assembly.structured import (
+    from pfemfort_jax.assembly.structured import (
         assemble_dia_structured, assemble_rhs_structured,
         build_structured_plan)
-    from pfemfort_tpu.elements.geometry import to_element_minor
-    from pfemfort_tpu.elements.poisson import poisson_element_matrices
+    from pfemfort_jax.elements.geometry import to_element_minor
+    from pfemfort_jax.elements.poisson import poisson_element_matrices
 
     mesh, _ = generate.box_tet(0, 1, 5, 0, 1, 6, 0, 1, 7)
     offsets, vals, rhs = stencil_full_system_f64(mesh)
@@ -84,9 +84,9 @@ def test_device_df_stencil_matches_host_f64():
     device) must reproduce the exact host-f64 system to DF accuracy."""
     import numpy as np
 
-    from pfemfort_tpu.assembly.stencil64 import (
+    from pfemfort_jax.assembly.stencil64 import (
         stencil_full_system_df_device, stencil_full_system_f64)
-    from pfemfort_tpu.mesh import generate
+    from pfemfort_jax.mesh import generate
 
     mesh, _ = generate.box_tet(0, 1, 6, 0, 1, 5, 0, 1, 7)
     offs_h, vals64, rhs64 = stencil_full_system_f64(mesh)

@@ -4,15 +4,15 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from pfemfort_tpu.config import SolverOptions
-from pfemfort_tpu.dynamics.checkpoint import (
+from pfemfort_jax.config import SolverOptions
+from pfemfort_jax.dynamics.checkpoint import (
     ExplicitState,
     load_state,
     save_state,
 )
-from pfemfort_tpu.dynamics.explicit import explicit_dynamics
-from pfemfort_tpu.mesh import generate
-from pfemfort_tpu.mesh import io as mesh_io
+from pfemfort_jax.dynamics.explicit import explicit_dynamics
+from pfemfort_jax.mesh import generate
+from pfemfort_jax.mesh import io as mesh_io
 
 
 def test_partitioned_io_roundtrip(tmp_path):
@@ -88,7 +88,7 @@ def test_cli_options_file(tmp_path, capsys):
     mesh_io.write_dat(prefix, mesh, dirichlet=dbc)
     opts = tmp_path / "petsc_options.dat"
     opts.write_text("-ksp_type cg\n-ksp_rtol 1e-6\n")
-    from pfemfort_tpu.drivers.cli import main
+    from pfemfort_jax.drivers.cli import main
     rc = main(["poisson", prefix + "-nodes.dat", prefix + "-elems.dat",
                prefix + "-DirichBC.dat", "--options-file", str(opts)])
     assert rc == 0

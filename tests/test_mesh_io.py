@@ -5,9 +5,9 @@ import os
 import numpy as np
 import pytest
 
-from pfemfort_tpu.io.vtk import vtk_to_vtu, write_vtk
-from pfemfort_tpu.mesh import generate
-from pfemfort_tpu.mesh import io as mesh_io
+from pfemfort_jax.io.vtk import vtk_to_vtu, write_vtk
+from pfemfort_jax.mesh import generate
+from pfemfort_jax.mesh import io as mesh_io
 
 
 def test_box_tet_counts():
@@ -114,7 +114,7 @@ def test_coords_em_device_matches_host():
     numpy broadcast build (up to f32 rounding)."""
     import jax.numpy as jnp
 
-    from pfemfort_tpu.mesh import generate
+    from pfemfort_jax.mesh import generate
 
     host = generate.box_tet_coords_em(0.0, 1.0, 3, -1.0, 2.0, 4, 0.5, 2.5, 5)
     dev = np.asarray(generate.box_tet_coords_em_device(

@@ -11,9 +11,9 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-from pfemfort_tpu.mesh import generate
-from pfemfort_tpu.drivers.poisson import solve_poisson
-from pfemfort_tpu.solve import multigrid as mg
+from pfemfort_jax.mesh import generate
+from pfemfort_jax.drivers.poisson import solve_poisson
+from pfemfort_jax.solve import multigrid as mg
 
 
 def test_transfer_adjointness():
@@ -102,12 +102,12 @@ def test_mg_chebyshev_coarse_tail():
     17.6k dofs); CG through that V-cycle must stay fast and exact."""
     import jax.numpy as jnp
 
-    from pfemfort_tpu.dofs.dofmap import build_dofmap
-    from pfemfort_tpu.elements.poisson import poisson_element_matrices
-    from pfemfort_tpu.solve.cg import cg_solve
-    from pfemfort_tpu.solve.multigrid import build_gmg, gmg_preconditioner
-    from pfemfort_tpu.sparse.dia import dia_diagonal
-    from pfemfort_tpu.sparse.ops import operator_and_diag
+    from pfemfort_jax.dofs.dofmap import build_dofmap
+    from pfemfort_jax.elements.poisson import poisson_element_matrices
+    from pfemfort_jax.solve.cg import cg_solve
+    from pfemfort_jax.solve.multigrid import build_gmg, gmg_preconditioner
+    from pfemfort_jax.sparse.dia import dia_diagonal
+    from pfemfort_jax.sparse.ops import operator_and_diag
 
     mesh, dbc = generate.box_tet(0, 1, 10, 0, 1, 10, 0, 1, 10)
     dofmap = build_dofmap(mesh, 1, dbc)
@@ -153,8 +153,8 @@ def test_gmg_elasticity_3d():
     fewer iterations than Jacobi and matches the reduced-path solution."""
     import jax.numpy as jnp
 
-    from pfemfort_tpu.drivers.elasticity import solve_elasticity
-    from pfemfort_tpu.mesh import generate
+    from pfemfort_jax.drivers.elasticity import solve_elasticity
+    from pfemfort_jax.mesh import generate
 
     # 4^3 keeps the three full solves (reduced / full-Jacobi / full-MG)
     # under ~15 s on 2 CPU cores while still two genuine MG levels deep

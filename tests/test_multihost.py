@@ -15,8 +15,8 @@ import sys
 import numpy as np
 import pytest
 
-from pfemfort_tpu.mesh import generate
-from pfemfort_tpu.mesh.io import write_partitioned
+from pfemfort_jax.mesh import generate
+from pfemfort_jax.mesh.io import write_partitioned
 
 
 def _free_port() -> int:
@@ -66,8 +66,8 @@ def test_two_process_distributed_solve(tmp_path):
 def test_two_process_unstructured_ell_solve(tmp_path):
     """Scrambled node numbering across 2 REAL processes: the unstructured
     per-shard ELL assembly (all_to_all stash) + pairwise ghost-exchange CG
-    must cross the process boundary (VERDICT r3 missing #3 — each half was
-    only ever tested separately)."""
+    must cross the process boundary (each half is also tested
+    separately)."""
     mesh, dbc = generate.box_tet(0, 1, 4, 0, 1, 4, 0, 1, 12)
     perm = np.random.default_rng(5).permutation(mesh.n_node)
     mesh = mesh.renumbered(perm.astype(np.int64))
@@ -83,8 +83,8 @@ def test_partitioned_roundtrip_single_process(tmp_path):
     """Per-rank files -> merge -> solve matches the direct solve."""
     import jax
 
-    from pfemfort_tpu.drivers.partitioned import read_partitioned_local
-    from pfemfort_tpu.drivers.poisson import solve_poisson
+    from pfemfort_jax.drivers.partitioned import read_partitioned_local
+    from pfemfort_jax.drivers.poisson import solve_poisson
 
     mesh, dbc = generate.box_tet(0, 1, 4, 0, 1, 4, 0, 1, 8)
     prefix = str(tmp_path / "pp")

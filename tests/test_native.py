@@ -6,13 +6,13 @@ import subprocess
 import numpy as np
 import pytest
 
-from pfemfort_tpu import native
-from pfemfort_tpu.mesh import generate, io as mesh_io
-from pfemfort_tpu.parallel.partition import rcb_partition
+from pfemfort_jax import native
+from pfemfort_jax.mesh import generate, io as mesh_io
+from pfemfort_jax.parallel.partition import rcb_partition
 
 pytestmark = pytest.mark.skipif(
     not native.available(), reason="libpfemnative.so not built "
-    "(make -C pfemfort_tpu/native)")
+    "(make -C pfemfort_jax/native)")
 
 BUILD = os.path.join(os.path.dirname(native.__file__), "build")
 
@@ -69,10 +69,10 @@ def test_native_ell_pattern_matches_numpy():
     bit-for-bit (same CSR, ELL, scatter permutation and segment ids)."""
     import numpy as np
 
-    from pfemfort_tpu import native
-    from pfemfort_tpu.assembly import pattern as pat
-    from pfemfort_tpu.dofs.dofmap import build_dofmap
-    from pfemfort_tpu.mesh import generate
+    from pfemfort_jax import native
+    from pfemfort_jax.assembly import pattern as pat
+    from pfemfort_jax.dofs.dofmap import build_dofmap
+    from pfemfort_jax.mesh import generate
 
     if not native.available():
         import pytest
@@ -99,47 +99,6 @@ def test_native_ell_pattern_matches_numpy():
                 err_msg=f)
 
 
-def test_native_sg_plan_matches_numpy():
-    """The C++ per-tile slot-gather plan builder must equal the numpy
-    builder bit-for-bit across banded / random / RCM-ordered / rectangular
-    (ghost-extended) patterns."""
-    import numpy as np
-
-    from pfemfort_tpu import native
-    from pfemfort_tpu.sparse import slotgather as sgm
-
-    if not native.available():
-        import pytest
-        pytest.skip("native library not built")
-
-    def compare(cols, n_rows, order=None, n_cols=None, sub=32):
-        a = sgm.build_slotgather_plan(cols, n_rows, order=order,
-                                      n_cols=n_cols, sub=sub)
-        orig = native.sg_plan
-        native.sg_plan = lambda *x, **k: None
-        try:
-            b = sgm.build_slotgather_plan(cols, n_rows, order=order,
-                                          n_cols=n_cols, sub=sub)
-        finally:
-            native.sg_plan = orig
-        assert (a.T, a.V, a.G) == (b.T, b.V, b.G)
-        for f in ("qsel", "vstart", "rsel", "eps", "src"):
-            np.testing.assert_array_equal(getattr(a, f), getattr(b, f),
-                                          err_msg=f)
-
-    rng = np.random.default_rng(1)
-    N, K = 2000, 6
-    cols = np.sort(rng.integers(0, N, (N, K)), axis=1).astype(np.int64)
-    cols[::5, -1] = N + 7
-    compare(cols, N)
-    offs = np.arange(-4, 5)
-    band = np.clip(np.sort(np.arange(N)[:, None] + offs, axis=1),
-                   0, N - 1).astype(np.int64)
-    compare(band, N)
-    rect = np.sort(rng.integers(0, 2400, (N, 8)), axis=1).astype(np.int64)
-    compare(rect, N, n_cols=2400, sub=8)
-
-
 def test_partition_quality_edge_cut_delaunay():
     """Partition-quality regression (the reference reports METIS objval,
     meshpartitioncpp.cpp:339): on a genuinely unstructured Delaunay mesh
@@ -148,8 +107,8 @@ def test_partition_quality_edge_cut_delaunay():
     traffic in every distributed solve."""
     from scipy.spatial import Delaunay
 
-    from pfemfort_tpu.mesh.core import Mesh
-    from pfemfort_tpu.parallel.partition import partition_elements
+    from pfemfort_jax.mesh.core import Mesh
+    from pfemfort_jax.parallel.partition import partition_elements
 
     if not native.available():
         import pytest

@@ -4,25 +4,25 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from pfemfort_tpu.assembly.assemble import (
+from pfemfort_jax.assembly.assemble import (
     assemble_matrix,
     assemble_rhs,
     dirichlet_rhs_correction,
 )
-from pfemfort_tpu.assembly.pattern import build_pattern
-from pfemfort_tpu.dofs.dofmap import build_dofmap
-from pfemfort_tpu.elements.poisson import poisson_element_matrices
-from pfemfort_tpu.mesh import generate
-from pfemfort_tpu.solve.cg import jacobi_preconditioner
-from pfemfort_tpu.solve.refine import cg_with_refinement
-from pfemfort_tpu.sparse.dia import dia_diagonal, spmv_dia
+from pfemfort_jax.assembly.pattern import build_pattern
+from pfemfort_jax.dofs.dofmap import build_dofmap
+from pfemfort_jax.elements.poisson import poisson_element_matrices
+from pfemfort_jax.mesh import generate
+from pfemfort_jax.solve.cg import jacobi_preconditioner
+from pfemfort_jax.solve.refine import cg_with_refinement
+from pfemfort_jax.sparse.dia import dia_diagonal, spmv_dia
 
 
 def _system(dtype):
     mesh, dbc = generate.box_tet(0, 1, 6, 0, 1, 6, 0, 1, 6)
     dofmap = build_dofmap(mesh, 1, dbc)
     pattern = build_pattern(dofmap.elem_dof, dofmap.total_dof)
-    from pfemfort_tpu.elements.geometry import to_element_minor
+    from pfemfort_jax.elements.geometry import to_element_minor
     coords_e = jnp.asarray(to_element_minor(mesh.elem_coords()),
                            dtype=dtype)
     Ke, Fe = poisson_element_matrices(coords_e, "tetra4", source=-6.0)
@@ -59,7 +59,7 @@ def test_refinement_reaches_1e10():
 def test_plain_f32_cg_cannot_reach_1e10():
     """Sanity: without refinement, f32 CG stalls well above 1e-10 —
     demonstrating the refinement is doing real work."""
-    from pfemfort_tpu.solve.cg import cg_solve
+    from pfemfort_jax.solve.cg import cg_solve
 
     _, _, Ad32, _ = _system(jnp.float32)
     mesh, dofmap, Ad64, b64 = _system(jnp.float64)
@@ -73,7 +73,7 @@ def test_plain_f32_cg_cannot_reach_1e10():
 
 
 def test_doublefloat_primitives_match_f64():
-    from pfemfort_tpu.solve import doublefloat as dfm
+    from pfemfort_jax.solve import doublefloat as dfm
     rng = np.random.default_rng(3)
     a64 = rng.standard_normal(1000) * 10.0**rng.integers(-6, 6, 1000)
     b64 = rng.standard_normal(1000) * 10.0**rng.integers(-6, 6, 1000)
@@ -93,7 +93,7 @@ def test_doublefloat_primitives_match_f64():
 
 
 def test_doublefloat_spmv_matches_f64():
-    from pfemfort_tpu.solve import doublefloat as dfm
+    from pfemfort_jax.solve import doublefloat as dfm
     _, _, Ad64, b64 = _system(jnp.float64)
     rng = np.random.default_rng(5)
     x64 = rng.standard_normal(Ad64.n_rows)
@@ -107,7 +107,7 @@ def test_doublefloat_spmv_matches_f64():
 
 
 def test_doublefloat_refinement_reaches_1e10():
-    from pfemfort_tpu.solve.refine import cg_with_refinement_df
+    from pfemfort_jax.solve.refine import cg_with_refinement_df
     mesh, dofmap, Ad64, b64 = _system(jnp.float64)
     vals64 = np.asarray(Ad64.vals)
     b64h = np.asarray(b64)

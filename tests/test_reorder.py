@@ -4,9 +4,9 @@ must be renumbered back to the gather-free DIA numbering, transparently."""
 import numpy as np
 import pytest
 
-from pfemfort_tpu.drivers.poisson import solve_poisson
-from pfemfort_tpu.mesh import generate
-from pfemfort_tpu.mesh.reorder import (
+from pfemfort_jax.drivers.poisson import solve_poisson
+from pfemfort_jax.mesh import generate
+from pfemfort_jax.mesh.reorder import (
     geometric_node_order,
     recover_structure,
 )
@@ -33,8 +33,8 @@ def test_recover_structure_finds_dia():
     rec = recover_structure(m2, 1, d2)
     assert rec is not None
     mesh3, dbc3, _, perm, _ = rec
-    from pfemfort_tpu.assembly.pattern import _offset_census
-    from pfemfort_tpu.dofs.dofmap import build_dofmap
+    from pfemfort_jax.assembly.pattern import _offset_census
+    from pfemfort_jax.dofs.dofmap import build_dofmap
     dm3 = build_dofmap(mesh3, 1, dbc3)
     assert len(_offset_census(dm3.elem_dof, dm3.total_dof)) <= 128
 
@@ -54,8 +54,8 @@ def test_solve_recovers_and_maps_back():
     ue = (m2.coords ** 2).sum(axis=1)
     assert np.abs(res.u_full - ue).max() < 1e-8
     # and the unrecovered ELL path gives the same answer
-    from pfemfort_tpu.drivers.common import solve_implicit
-    from pfemfort_tpu.elements.poisson import poisson_element_matrices
+    from pfemfort_jax.drivers.common import solve_implicit
+    from pfemfort_jax.elements.poisson import poisson_element_matrices
     res0 = solve_implicit(
         m2, 1, d2, lambda c: poisson_element_matrices(
             c, "tetra4", source=-6.0), rtol=1e-11, recover=False)

@@ -6,22 +6,22 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from pfemfort_tpu.drivers.poisson import solve_poisson
-from pfemfort_tpu.mesh import generate
-from pfemfort_tpu.parallel.partition import (
+from pfemfort_jax.drivers.poisson import solve_poisson
+from pfemfort_jax.mesh import generate
+from pfemfort_jax.parallel.partition import (
     dual_graph,
     greedy_graph_partition,
     partition_elements,
     rcb_partition,
 )
-from pfemfort_tpu.parallel.shard import build_sharded_system
-from pfemfort_tpu.parallel.shard_cg import distributed_cg_solve, shard_arrays
-from pfemfort_tpu.assembly.assemble import (
+from pfemfort_jax.parallel.shard import build_sharded_system
+from pfemfort_jax.parallel.shard_cg import distributed_cg_solve, shard_arrays
+from pfemfort_jax.assembly.assemble import (
     assemble_ell_values,
     assemble_rhs,
     dirichlet_rhs_correction,
 )
-from pfemfort_tpu.elements.poisson import poisson_element_matrices
+from pfemfort_jax.elements.poisson import poisson_element_matrices
 
 
 def _devices_mesh(n):
@@ -59,7 +59,7 @@ def test_sharded_cg_matches_single_device(n_shards):
 
     # sharded system
     sys_ = build_sharded_system(mesh, 1, dbc, n_shards, layout='ell')
-    from pfemfort_tpu.elements.geometry import to_element_minor
+    from pfemfort_jax.elements.geometry import to_element_minor
     coords_e = jnp.asarray(to_element_minor(mesh.elem_coords()))
     Ke, Fe_src = poisson_element_matrices(coords_e, "tetra4", source=-6.0)
     A = assemble_ell_values(Ke, sys_.pattern,
@@ -85,7 +85,7 @@ def test_sharded_iteration_count_close_to_serial():
     res = solve_poisson(mesh, dbc, rtol=1e-10)
 
     sys_ = build_sharded_system(mesh, 1, dbc, 4, layout='ell')
-    from pfemfort_tpu.elements.geometry import to_element_minor
+    from pfemfort_jax.elements.geometry import to_element_minor
     coords_e = jnp.asarray(to_element_minor(mesh.elem_coords()))
     Ke, Fe_src = poisson_element_matrices(coords_e, "tetra4", source=-6.0)
     A = assemble_ell_values(Ke, sys_.pattern,

@@ -5,9 +5,9 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from pfemfort_tpu.dynamics.explicit import explicit_dynamics
-from pfemfort_tpu.dynamics.sharded import explicit_dynamics_sharded
-from pfemfort_tpu.mesh import generate
+from pfemfort_jax.dynamics.explicit import explicit_dynamics
+from pfemfort_jax.dynamics.sharded import explicit_dynamics_sharded
+from pfemfort_jax.mesh import generate
 
 
 def _mesh_or_skip(n):

@@ -6,12 +6,12 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from pfemfort_tpu.drivers.poisson import solve_poisson
-from pfemfort_tpu.drivers.sharded import solve_implicit_sharded
-from pfemfort_tpu.elements.poisson import poisson_element_matrices
-from pfemfort_tpu.elements.elasticity import dmat_3d, elasticity_stiffness
-from pfemfort_tpu.mesh import generate
-from pfemfort_tpu.parallel.partition import slab_partition
+from pfemfort_jax.drivers.poisson import solve_poisson
+from pfemfort_jax.drivers.sharded import solve_implicit_sharded
+from pfemfort_jax.elements.poisson import poisson_element_matrices
+from pfemfort_jax.elements.elasticity import dmat_3d, elasticity_stiffness
+from pfemfort_jax.mesh import generate
+from pfemfort_jax.parallel.partition import slab_partition
 
 
 def _mesh_or_skip(n):
@@ -56,7 +56,7 @@ def test_halo_cg_elasticity_3d():
     tip = np.argmax(mesh.coords[:, 2])
     fbc = np.array([[tip, 0, 1.0]])
 
-    from pfemfort_tpu.drivers.elasticity import solve_elasticity
+    from pfemfort_jax.drivers.elasticity import solve_elasticity
     ref = solve_elasticity(mesh, dbc, 240.565, 0.3, force_bc=fbc, rtol=1e-11)
 
     res = solve_implicit_sharded(
@@ -71,12 +71,12 @@ def test_lattice_halo_spmv_matches_single_device():
     """The stencil form of the in-shard SpMV (spmv_dia_halo_lattice) must
     equal the single-device DIA SpMV exactly, and the slab sharding must
     make it eligible (plane-aligned shards + decomposable offsets)."""
-    from pfemfort_tpu.assembly.assemble import assemble_matrix
-    from pfemfort_tpu.elements.geometry import to_element_minor
-    from pfemfort_tpu.parallel.halo import (
+    from pfemfort_jax.assembly.assemble import assemble_matrix
+    from pfemfort_jax.elements.geometry import to_element_minor
+    from pfemfort_jax.parallel.halo import (
         lattice_halo_plan, spmv_dia_halo_lattice)
-    from pfemfort_tpu.parallel.shard import build_sharded_system
-    from pfemfort_tpu.sparse.dia import spmv_dia
+    from pfemfort_jax.parallel.shard import build_sharded_system
+    from pfemfort_jax.sparse.dia import spmv_dia
     from jax.sharding import PartitionSpec as P
 
     dm = _mesh_or_skip(4)

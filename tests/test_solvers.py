@@ -4,16 +4,16 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from pfemfort_tpu.assembly.assemble import assemble_matrix
-from pfemfort_tpu.assembly.pattern import build_pattern
-from pfemfort_tpu.dofs.dofmap import build_dofmap
-from pfemfort_tpu.elements.elasticity import dmat_3d, elasticity_stiffness
-from pfemfort_tpu.elements.geometry import to_element_minor
-from pfemfort_tpu.mesh import generate
-from pfemfort_tpu.solve.cg import cg_solve, jacobi_preconditioner
-from pfemfort_tpu.solve.gmres import gmres_solve
-from pfemfort_tpu.solve.precond import block_jacobi_preconditioner
-from pfemfort_tpu.sparse.ops import operator_and_diag
+from pfemfort_jax.assembly.assemble import assemble_matrix
+from pfemfort_jax.assembly.pattern import build_pattern
+from pfemfort_jax.dofs.dofmap import build_dofmap
+from pfemfort_jax.elements.elasticity import dmat_3d, elasticity_stiffness
+from pfemfort_jax.elements.geometry import to_element_minor
+from pfemfort_jax.mesh import generate
+from pfemfort_jax.solve.cg import cg_solve, jacobi_preconditioner
+from pfemfort_jax.solve.gmres import gmres_solve
+from pfemfort_jax.solve.precond import block_jacobi_preconditioner
+from pfemfort_jax.sparse.ops import operator_and_diag
 
 
 def test_gmres_on_spd():
@@ -76,7 +76,7 @@ def test_block_jacobi_is_exact_blockdiag_inverse():
     M = block_jacobi_preconditioner(A, 3)
     # applying M to the columns of the block-diagonal reproduces identity
     n = A.n_rows
-    from pfemfort_tpu.solve.precond import _block_diag_from_dia
+    from pfemfort_jax.solve.precond import _block_diag_from_dia
     blocks = np.asarray(_block_diag_from_dia(A, 3))  # (3, 3, nb)
     rng = np.random.default_rng(3)
     r = rng.standard_normal(n)
@@ -89,12 +89,12 @@ def test_block_jacobi_is_exact_blockdiag_inverse():
 
 
 def test_chebyshev_preconditioner_beats_jacobi(tet10):
-    """The TPU-first ILU-class option (solve/precond.py:
+    """The matrix-free ILU-class option (solve/precond.py:
     chebyshev_preconditioner): markedly fewer CG iterations than scalar
     Jacobi on the reference's tet10 fixture, same solution."""
     import numpy as np
 
-    from pfemfort_tpu.drivers.poisson import solve_poisson
+    from pfemfort_jax.drivers.poisson import solve_poisson
 
     mesh, dbc, _ = tet10
     rj = solve_poisson(mesh, dbc, rtol=1e-10)
@@ -112,7 +112,7 @@ def test_ic0_preconditioner_beats_jacobi(tet10):
     fixture, same solution, and the route is recorded in timings."""
     import numpy as np
 
-    from pfemfort_tpu.drivers.poisson import solve_poisson
+    from pfemfort_jax.drivers.poisson import solve_poisson
 
     mesh, dbc, _ = tet10
     rj = solve_poisson(mesh, dbc, rtol=1e-10)
@@ -129,7 +129,7 @@ def test_ic0_factor_exact_on_tridiag():
     python and native backends must both reproduce L L^T = A."""
     import numpy as np
 
-    from pfemfort_tpu.solve.ic0 import _ic0_python
+    from pfemfort_jax.solve.ic0 import _ic0_python
 
     n = 50
     rng = np.random.default_rng(0)
@@ -153,7 +153,7 @@ def test_ic0_factor_exact_on_tridiag():
     _ic0_python(lp, li32.astype(np.int64), lv_py)
     results.append(lv_py)
     try:
-        from pfemfort_tpu import native
+        from pfemfort_jax import native
 
         if native.available():
             lv_nat = np.ascontiguousarray(lv, dtype=np.float64)

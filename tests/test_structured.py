@@ -4,20 +4,20 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from pfemfort_tpu.assembly.assemble import assemble_matrix, assemble_rhs
-from pfemfort_tpu.assembly.pattern import build_pattern
-from pfemfort_tpu.assembly.structured import (
+from pfemfort_jax.assembly.assemble import assemble_matrix, assemble_rhs
+from pfemfort_jax.assembly.pattern import build_pattern
+from pfemfort_jax.assembly.structured import (
     assemble_dia_structured,
     assemble_rhs_structured,
     build_structured_plan,
 )
-from pfemfort_tpu.dofs.dofmap import build_dofmap
-from pfemfort_tpu.drivers.poisson import solve_poisson
-from pfemfort_tpu.elements.geometry import to_element_minor
-from pfemfort_tpu.elements.poisson import poisson_element_matrices
-from pfemfort_tpu.mesh import generate
-from pfemfort_tpu.sparse.dia import spmv_dia
-from pfemfort_tpu.sparse.ops import operator_and_diag
+from pfemfort_jax.dofs.dofmap import build_dofmap
+from pfemfort_jax.drivers.poisson import solve_poisson
+from pfemfort_jax.elements.geometry import to_element_minor
+from pfemfort_jax.elements.poisson import poisson_element_matrices
+from pfemfort_jax.mesh import generate
+from pfemfort_jax.sparse.dia import spmv_dia
+from pfemfort_jax.sparse.ops import operator_and_diag
 
 
 def test_structured_assembly_matches_general():
@@ -61,7 +61,7 @@ def test_structured_full_solve_exact():
 def test_structured_flag_survives_io(tmp_path):
     """Meshes read back from .dat files have no structure metadata and fall
     back to the general path — same answer."""
-    from pfemfort_tpu.mesh import io as mesh_io
+    from pfemfort_jax.mesh import io as mesh_io
 
     mesh, dbc = generate.box_tet(0, 1, 4, 0, 1, 4, 0, 1, 4)
     prefix = str(tmp_path / "m")
@@ -76,7 +76,7 @@ def test_structured_flag_survives_io(tmp_path):
 def test_structured_elasticity_matches_general():
     """ndof=3 structured slice-add assembly == general scatter assembly."""
     import jax.numpy as jnp
-    from pfemfort_tpu.elements.elasticity import dmat_3d, elasticity_stiffness
+    from pfemfort_jax.elements.elasticity import dmat_3d, elasticity_stiffness
 
     nex, ney, nez = 3, 3, 4
     mesh, _ = generate.box_tet(0, 1, nex, 0, 1, ney, 0, 1, nez)
@@ -105,7 +105,7 @@ def test_structured_elasticity_matches_general():
 def test_structured_elasticity_full_solve():
     """Beam-like elasticity through the full-system structured path matches
     the reduced solve."""
-    from pfemfort_tpu.drivers.elasticity import solve_elasticity
+    from pfemfort_jax.drivers.elasticity import solve_elasticity
 
     mesh, _ = generate.box_tet(0, 1, 3, 0, 1, 3, 0, 2, 6)
     base = np.nonzero(np.isclose(mesh.coords[:, 2], 0))[0]
@@ -122,12 +122,12 @@ def test_structured_elasticity_full_solve():
 
 def test_structured_2d_matches_general():
     import jax.numpy as jnp
-    from pfemfort_tpu.assembly.structured import (
+    from pfemfort_jax.assembly.structured import (
         assemble_dia_structured_2d,
         assemble_rhs_structured_2d,
         build_structured_plan_2d,
     )
-    from pfemfort_tpu.elements.poisson import poisson_element_matrices
+    from pfemfort_jax.elements.poisson import poisson_element_matrices
 
     nex, ney = 5, 4
     mesh = generate.rect_tria(0, 1, nex, 0, 2, ney)
@@ -166,17 +166,17 @@ def test_reduce_structured_system_matches_general_path():
     assembly (matrix and rhs), on the flagship box-tet problem."""
     import jax.numpy as jnp
 
-    from pfemfort_tpu.assembly.assemble import (
+    from pfemfort_jax.assembly.assemble import (
         assemble_matrix, assemble_rhs, dirichlet_rhs_correction)
-    from pfemfort_tpu.assembly.pattern import build_pattern
-    from pfemfort_tpu.assembly.structured import (
+    from pfemfort_jax.assembly.pattern import build_pattern
+    from pfemfort_jax.assembly.structured import (
         assemble_dia_structured, assemble_rhs_structured,
         build_structured_plan, reduce_structured_system)
-    from pfemfort_tpu.dofs.dofmap import (
+    from pfemfort_jax.dofs.dofmap import (
         build_dofmap, full_lattice, reduced_box, reduced_lattice)
-    from pfemfort_tpu.elements.geometry import to_element_minor
-    from pfemfort_tpu.elements.poisson import poisson_element_matrices
-    from pfemfort_tpu.mesh import generate
+    from pfemfort_jax.elements.geometry import to_element_minor
+    from pfemfort_jax.elements.poisson import poisson_element_matrices
+    from pfemfort_jax.mesh import generate
 
     n = 6
     mesh, dbc = generate.box_tet(0, 1, n, 0, 1, n, 0, 1, n)
@@ -203,7 +203,7 @@ def test_reduce_structured_system_matches_general_path():
     # compare as dense maps applied to probes (offset sets may differ by
     # zero-only diagonals)
     rng = np.random.default_rng(0)
-    from pfemfort_tpu.sparse.dia import spmv_dia
+    from pfemfort_jax.sparse.dia import spmv_dia
     for _ in range(3):
         x = jnp.asarray(rng.standard_normal(A_ref.n_rows))
         np.testing.assert_allclose(np.asarray(spmv_dia(A_red, x)),
@@ -218,12 +218,12 @@ def test_chunked_structured_assembly_matches_oneshot():
     import jax
     import jax.numpy as jnp
 
-    from pfemfort_tpu.assembly.structured import (
+    from pfemfort_jax.assembly.structured import (
         assemble_dia_structured, assemble_rhs_structured,
         assemble_structured_chunked, build_structured_plan)
-    from pfemfort_tpu.elements.geometry import to_element_minor
-    from pfemfort_tpu.elements.poisson import poisson_element_matrices
-    from pfemfort_tpu.mesh import generate
+    from pfemfort_jax.elements.geometry import to_element_minor
+    from pfemfort_jax.elements.poisson import poisson_element_matrices
+    from pfemfort_jax.mesh import generate
 
     n = 6
     mesh, _ = generate.box_tet(0, 1, n, 0, 1, n, 0, 1, n)
